@@ -1,35 +1,33 @@
 #!/usr/bin/env python
-"""mops_tpu headline benchmark: particle-RK4-steps/s/chip.
+"""mops_jax headline benchmark: particle-RK4-steps/s on one GPU.
 
 Runs the full streamline RK4 advection loop (relocation + Wachspress
 interpolation + vertical layer search + RK4 sphere update, i.e. the reference
-StreamLine kernel pipeline) on a synthetic eddy-scale MPAS-like mesh, fp32
-fast mode, and reports ONE JSON line:
+StreamLine kernel pipeline) on a synthetic MPAS-like mesh in float32 and
+reports ONE JSON line:
 
     {"metric": "particle_rk4_steps_per_s", "value": N, "unit": "steps/s",
-     "vs_baseline": R}
+     "verified": bool, "device": {...}}
 
-The reference publishes no benchmark numbers (BASELINE.md); vs_baseline is
-measured against the recorded first-round value in BENCH_BASELINE.json when
-present, else 1.0.
+Before timing, 20 steps of the timed program are gated (mops_jax.gate)
+against the float64 step on the same lanes.  A run without a GPU fails.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
-# fp32 fast mode: do NOT enable x64.
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/mops_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import mops_tpu as mt
-from mops_tpu.settings import FailMode
+import mops_jax as mt
+from mops_jax.config import use_compile_cache
+from mops_jax.gate import lane_gate
+from mops_jax.settings import FailMode
 
 
 def build_case(n_cells, n_layers, n_particles, seed=0,
@@ -55,14 +53,22 @@ def build_case(n_cells, n_layers, n_particles, seed=0,
 
 
 def main():
+    use_compile_cache()
+    jax.config.update("jax_enable_x64", True)   # for the float64 gate only
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench.py: no GPU (JAX platform is {dev.platform!r})")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     n_cells = int(os.environ.get("BENCH_CELLS", 20000))
     n_layers = int(os.environ.get("BENCH_LAYERS", 60))
     n_particles = int(os.environ.get("BENCH_PARTICLES", 65536))
     n_steps = int(os.environ.get("BENCH_STEPS", 200))
     # BENCH_REGIME=crossing: realistic vertVelocityTop magnitude (1e-3 m/s,
     # sign varying over the sphere) + O(1) bathymetry gradients, so particles
-    # cross layers and the window-miss fallback is actually exercised
-    # (VERDICT r4 missing #3); the default solid-body regime never misses.
+    # cross layers often; the default solid-body regime keeps its layers.
     crossing = os.environ.get("BENCH_REGIME") == "crossing"
 
     mesh, sol, seeds, cells = build_case(
@@ -82,36 +88,19 @@ def main():
         delta_t=delta_t, simulation_duration=delta_t * n_steps,
         record_t=delta_t * n_steps, fail_mode=FailMode.ZERO, **depth_kw)
 
-    # Hardware correctness gate BEFORE timing: the fast path must agree with
-    # the reference-exact pure-XLA step ON THIS DEVICE.  (Round 5 found the
-    # compiled windowed kernel silently advecting zero-velocity particles on
-    # real TPU -- bitcast int payloads flushed as f32 subnormals -- while
-    # every CPU-interpret test stayed green.  Never trust a steps/s number
-    # without this.)
+    # correctness gate before timing: the timed program against the float64
+    # step on the same lanes (an independent reference on this device)
     vg_cfg = mt.TrajectorySettings(
         delta_t=delta_t, simulation_duration=delta_t * 20,
         record_t=delta_t * 20, fail_mode=FailMode.ZERO, **depth_kw)
     fast = mt.run_advection(mesh, sol, seeds, cells, vg_cfg,
                             exact_clamp=False, dtype=jnp.float32)
     exact = mt.run_advection(mesh, sol, seeds, cells, vg_cfg,
-                             exact_clamp=False, dtype=jnp.float32,
-                             use_pallas=False)
-    fp, ep = np.asarray(fast.final_position), np.asarray(exact.final_position)
-    err = np.linalg.norm(fp - ep, axis=1)
-    disp = float(np.median(np.linalg.norm(ep - np.asarray(seeds), axis=1)))
-    dispf = float(np.median(np.linalg.norm(fp - np.asarray(seeds), axis=1)))
-    # robust criterion: a handful of lanes legitimately diverge when an f32
-    # rounding difference flips a near-tie relocation argmin (chaotic but
-    # valid); a BROKEN path moves nothing (or everything wrong).  Require
-    # 99.5% of lanes within tolerance (tie-flip rate grows with mesh size) AND matching median displacement.
-    tol = max(100.0, 1e-4 * max(disp, 1.0))
-    frac_ok = float((err <= tol).mean())
-    verified = frac_ok >= 0.995 and \
-        abs(dispf - disp) <= 0.05 * max(disp, 1.0)
-    if not verified:
-        print(f"# CORRECTNESS GATE FAILED: {100 * (1 - frac_ok):.2f}% lanes "
-              f"off (> {tol:.1f} m); median displacement fast {dispf:.1f} vs "
-              f"exact {disp:.1f} m", file=sys.stderr)
+                             dtype=jnp.float64)
+    gate = lane_gate(np.asarray(fast.final_position),
+                     np.asarray(exact.final_position), seeds)
+    if not gate["ok"]:
+        print(f"# CORRECTNESS GATE FAILED: {gate}", file=sys.stderr)
 
     def run():
         raw = mt.run_advection(mesh, sol, seeds, cells, cfg,
@@ -121,59 +110,23 @@ def main():
 
     run()                       # compile + warm
     t0 = time.perf_counter()
-    raw = run()
+    run()
     elapsed = time.perf_counter() - t0
-
     steps_per_s = n_particles * n_steps / elapsed
-    misses = 0 if raw.window_misses is None \
-        else int(np.asarray(raw.window_misses).sum())
-    miss_rate = misses / (n_particles * n_steps)
 
-    vs = 1.0
-    base_path = os.path.join(os.path.dirname(__file__), "BENCH_BASELINE.json")
-    if os.path.exists(base_path):
-        with open(base_path) as f:
-            base = json.load(f)
-        if base.get("value"):
-            vs = steps_per_s / float(base["value"])
-
+    print(f"# device={dev.platform} kind={dev.device_kind!r} card={card!r} "
+          f"cells={n_cells} layers={n_layers} particles={n_particles} "
+          f"steps={n_steps} elapsed={elapsed:.6f}s "
+          f"regime={'crossing' if crossing else 'solid-body'} "
+          f"gate_share_off={gate['share_off']}", file=sys.stderr)
     print(json.dumps({
         "metric": "particle_rk4_steps_per_s",
-        "value": round(steps_per_s, 1),
+        "value": steps_per_s,
         "unit": "steps/s",
-        "vs_baseline": round(vs, 3),
-        "verified": verified,
+        "verified": gate["ok"],
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices()), "card": card},
     }))
-
-    # roofline accounting: practical HBM peak via a big-copy probe, vs the
-    # step's minimum gather traffic x3 (gather read + materialize + kernel
-    # read) -- so perf progress is measurable against the hardware bound.
-    # The mode flags and gather bytes come from what run_advection ACTUALLY
-    # resolved (advect.LAST_RESOLVED), not a re-derivation that could drift.
-    from mops_tpu.advect import LAST_RESOLVED
-    windowed = bool(LAST_RESOLVED.get("window"))
-    packed = bool(LAST_RESOLVED.get("pack"))
-    gather_bytes = int(LAST_RESOLVED.get("gather_bytes", 0))
-    big = jnp.zeros((256, 1 << 20), jnp.float32)
-    cp = jax.jit(lambda x: x + 1.0)
-    o = cp(big).block_until_ready()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        o = cp(o)
-    o.block_until_ready()
-    peak = 2 * big.nbytes / ((time.perf_counter() - t0) / 5) / 1e9
-    traffic = 3 * gather_bytes * steps_per_s / 1e9
-    print(f"# device={jax.devices()[0].platform} cells={n_cells} "
-          f"layers={n_layers} particles={n_particles} steps={n_steps} "
-          f"elapsed={elapsed:.3f}s "
-          f"regime={'crossing' if crossing else 'solid-body'} "
-          f"window_misses={misses} miss_rate={miss_rate:.2e}/particle-step",
-          file=sys.stderr)
-    print(f"# roofline: windowed={windowed} packed={packed} "
-          f"gather={gather_bytes}B/step "
-          f"traffic~{traffic:.0f}GB/s copy-peak~{peak:.0f}GB/s "
-          f"({100 * traffic / peak:.0f}% of practical HBM peak)",
-          file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,12 @@
 // solution arrays supplied through a tagged binary file, and writes the
 // resulting trajectories back in the same format.
 //
-// This closes the oracle loop demanded by SURVEY.md §4: mops_tpu
+// This closes the oracle loop demanded by SURVEY.md §4: mops_jax
 // trajectories are compared against the reference's own compiled code
 // (src/CPU/TBB/Kernel/MPASOVisualizerKernels.cpp), not against a hand
 // transcription.
 //
-// Build (see mops_tpu/oracle/refbin.py):
+// Build (see mops_jax/oracle/refbin.py):
 //   g++ -O2 -std=c++17 -I golden/shim -I $REF/src -I $REF/include \
 //       -DMOPS_USE_CPU=1 -DMOPS_USE_TBB=1 -DMOPS_USE_GPU=0 \
 //       -DMOPS_USE_SYCL=0 -DMOPS_USE_CUDA=0 -DMOPS_USE_HIP=0 \

@@ -27,11 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/mops_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import mops_tpu as mt
-from mops_tpu.settings import FailMode
+import mops_jax as mt
+from mops_jax.config import use_compile_cache
+from mops_jax.settings import FailMode
 
 
 def make_case(n_cells, n_layers, seed=0):
@@ -143,11 +141,10 @@ def config4(small):
         particle_depths=mt.seeding.linear_depth_profile(n_part, 10, 500),
         fail_mode=FailMode.ZERO)
 
-    # chunk=128k: bounds both XLA compile width (the remote compile helper
-    # fails >~512k-wide modules) and the fallback branch's padded (N*K, L, 3)
-    # gather temps (4.3x layout expansion -- 262144 OOMed HBM at compile
-    # once the miss-repair branch joined the cond); each chunk reuses one
-    # compiled executable, so throughput is unaffected beyond dispatch
+    # chunk bounds the device memory of the gathered vertex columns (about
+    # 13 KB per particle at L=40 with two snapshots); each chunk reuses one
+    # compiled executable.  Whether chunking still pays on the GPU is not
+    # measured yet.
     def run():
         return mt.run_advection(mesh, sol, seeds, cells, cfg, back=sol2,
                                 exact_clamp=False, chunk=131072,
@@ -158,7 +155,7 @@ def config4(small):
 
 def config5(small):
     """Domain-decomposed migration run (config 5 single-host stand-in)."""
-    from mops_tpu.parallel.migrate import run_advection_migrating, reassemble
+    from mops_jax.parallel.migrate import run_advection_migrating, reassemble
     n_part = 20_000 if small else 200_000
     mesh64 = mt.synth.build_voronoi_mesh(2000 if small else 20000,
                                          jitter=0.05, n_layers=20)
@@ -193,6 +190,7 @@ def main():
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
+    use_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)

@@ -1,18 +1,16 @@
 #!/usr/bin/env python
-"""Reference-scale benchmark artifacts -> BENCH_REFSCALE.json.
+"""Reference-scale benchmark cases, one JSON line each.
 
-VERDICT r4 missing #2: the reference-scale numbers existed only in a commit
-message.  This script measures, on the real TPU, with the bench.py
-correctness gate applied to every engine case:
+Every engine case is gated (mops_jax.gate) against the float64 XLA step on
+a particle subset before it is timed:
 
-  A. 500k cells x L=80 streamline (eddy-resolving scale, round-4 claim)
-  B. 2M cells x L=80 streamline (oRRS18to6-class cell count)
-  C. window/pack budget sweep at 500k x L=80 (stride vs steps/s curve)
-  D. config-4 spec: >=1M cells, 10M particles via chunk, pathline
-  E. config-5 spec: >=1M cells, 10M particles on the decomposed
-     (migrating) engine, single-chip stand-in
+  A. 500k cells x L=80 streamline (eddy-resolving scale)
+  B. 2M cells x L=40 streamline (oRRS18to6-class cell count)
+  D. config-4 spec: 1M cells, 10M particles via chunk, pathline
+  E. config-5 spec: 1M cells, 10M particles on the decomposed (migrating)
+     engine over the visible devices
 
-Usage: python scripts/bench_refscale.py [A B C D E] [--out BENCH_REFSCALE.json]
+Usage: python scripts/bench_refscale.py [A B D E] [--out FILE]
 """
 
 import argparse
@@ -27,11 +25,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/mops_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import mops_tpu as mt
-from mops_tpu.settings import FailMode
+import mops_jax as mt
+from mops_jax.config import use_compile_cache
+from mops_jax.gate import lane_gate
+from mops_jax.settings import FailMode
 
 RESULTS = []
 
@@ -49,9 +46,8 @@ def build(n_cells, n_layers, n_particles, seed=0, with_attrs=False):
     t1 = time.perf_counter()
     raw = mt.synth.solid_body_fields(mesh64, n_layers=n_layers, w_scale=1e-5)
     if not with_attrs:
-        # temperature/salinity attrs double the per-vertex memory and the
-        # streamline cases never read them; at 2M cells x L=80 the full set
-        # would not leave room for the advection tables in one chip's HBM
+        # temperature/salinity double the per-vertex memory and the
+        # streamline cases never read them
         raw = {k: v for k, v in raw.items()
                if k not in ("temperature", "salinity")}
     mesh = mesh64.astype(np.float32)
@@ -74,7 +70,8 @@ def build(n_cells, n_layers, n_particles, seed=0, with_attrs=False):
 
 
 def gate(mesh, sol, seeds, cells, cfg, n_gate=8192, **kw):
-    """bench.py-style hardware gate on a particle subset, 20 steps."""
+    """The timed path against the float64 XLA step on a particle subset,
+    20 steps."""
     import dataclasses as dc
     sub = slice(0, min(n_gate, len(seeds)))
     depths = np.asarray(cfg.effective_depths(len(seeds)))[sub]
@@ -84,22 +81,11 @@ def gate(mesh, sol, seeds, cells, cfg, n_gate=8192, **kw):
     fast = mt.run_advection(mesh, sol, seeds[sub], cells[sub], gcfg,
                             exact_clamp=False, dtype=jnp.float32, **kw)
     exact = mt.run_advection(mesh, sol, seeds[sub], cells[sub], gcfg,
-                             exact_clamp=False, dtype=jnp.float32,
-                             use_pallas=False, **kw)
-    fp = np.asarray(fast.final_position)
-    ep = np.asarray(exact.final_position)
-    err = np.linalg.norm(fp - ep, axis=1)
-    disp = float(np.median(np.linalg.norm(ep - np.asarray(seeds[sub]),
-                                          axis=1)))
-    tol = max(100.0, 1e-4 * max(disp, 1.0))
-    frac = float((err <= tol).mean())
-    dispf = float(np.median(np.linalg.norm(fp - np.asarray(seeds[sub]),
-                                           axis=1)))
-    ok = frac >= 0.995 and abs(dispf - disp) <= 0.05 * max(disp, 1.0)
-    print(f"# gate: frac_ok={frac:.5f} disp_exact={disp:.1f} "
-          f"disp_fast={dispf:.1f} tol={tol:.1f} -> {ok}",
-          file=sys.stderr, flush=True)
-    return ok
+                             dtype=jnp.float64, **kw)
+    res = lane_gate(np.asarray(fast.final_position),
+                    np.asarray(exact.final_position), seeds[sub])
+    print(f"# gate: {res}", file=sys.stderr, flush=True)
+    return res["ok"]
 
 
 def timed_run(fn):
@@ -124,14 +110,10 @@ def streamline_case(name, n_cells, n_layers, n_particles, n_steps=100):
                                 exact_clamp=False,
                                 dtype=jnp.float32)
     raw, dt = timed_run(lambda: run().final_position)
-    run()   # re-resolve LAST_RESOLVED for this shape
-    from mops_tpu.advect import LAST_RESOLVED
     log({"case": name, "cells": n_cells, "layers": n_layers,
          "particles": n_particles, "steps": n_steps,
-         "steps_per_s": round(n_particles * n_steps / dt, 1),
-         "elapsed_s": round(dt, 2), "verified": ok,
-         "mode": {k: LAST_RESOLVED.get(k) for k in
-                  ("pallas", "window", "pack", "pack_stride", "win_stride")}})
+         "steps_per_s": n_particles * n_steps / dt,
+         "elapsed_s": dt, "verified": ok})
     return mesh, sol, seeds, cells, cfg
 
 
@@ -139,47 +121,7 @@ def case_A_B(which):
     if "A" in which:
         streamline_case("refscale-500k", 500_000, 80, 65_536)
     if "B" in which:
-        # L=40 at 2M cells: at L=80 the vertex field tables (~10 GB) plus
-        # XLA's gather-layout copies exceed one v5e's 15.75 GB through EVERY
-        # single-chip engine path (windowed tables are >25 GB at any stride,
-        # the packed full-table copy is 6.5 GB, and the pure-XLA exact step
-        # relayouts whole tables) -- that regime is what the domain-
-        # decomposed migrating engine is for (SURVEY section 5 mesh-size
-        # scaling).  2M x L=40 is the largest single-chip configuration.
         streamline_case("refscale-2M", 2_000_000, 40, 65_536)
-
-
-def case_C():
-    """Budget sweep at 100k x L=80 -- a shape where the strided window
-    table actually engages at several strides (at 500k x L=80 no stride
-    fits a runtime-safe budget and the full-table kernel wins; that point
-    is case A)."""
-    mesh, sol, seeds, cells = build(100_000, 80, 65_536)
-    cfg = mt.TrajectorySettings(delta_t=120, simulation_duration=120 * 100,
-                                record_t=120 * 100, depth=100.0,
-                                fail_mode=FailMode.ZERO)
-    for label, pack_gb, win_gb in [("default", 4.0, 6.0),
-                                   ("half", 2.0, 3.0),
-                                   ("min", 0.5, 1.5),
-                                   ("window-off", 0.0, 0.0)]:
-        os.environ["MOPS_PACK_BUDGET_GB"] = str(pack_gb)
-        os.environ["MOPS_WINDOW_BUDGET_GB"] = str(win_gb)
-        try:
-            def run():
-                return mt.run_advection(mesh, sol, seeds, cells, cfg,
-                                        exact_clamp=False,
-                                        dtype=jnp.float32).final_position
-            _, dt = timed_run(run)
-            from mops_tpu.advect import LAST_RESOLVED
-            log({"case": f"stride-sweep-{label}",
-                 "pack_budget_gb": pack_gb, "window_budget_gb": win_gb,
-                 "steps_per_s": round(65_536 * 100 / dt, 1),
-                 "mode": {k: LAST_RESOLVED.get(k) for k in
-                          ("pallas", "window", "pack", "pack_stride",
-                           "win_stride")}})
-        finally:
-            del os.environ["MOPS_PACK_BUDGET_GB"]
-            del os.environ["MOPS_WINDOW_BUDGET_GB"]
 
 
 def case_D():
@@ -207,13 +149,13 @@ def case_D():
     _, dt = timed_run(run)
     log({"case": "config4-spec", "cells": n_cells, "layers": n_layers,
          "particles": n_part, "steps": n_steps,
-         "steps_per_s": round(n_part * n_steps / dt, 1),
-         "elapsed_s": round(dt, 2), "verified": ok})
+         "steps_per_s": n_part * n_steps / dt,
+         "elapsed_s": dt, "verified": ok})
 
 
 def case_E():
     """Config-5 spec scale: 1M cells, 10M particles, migrating engine."""
-    from mops_tpu.parallel.migrate import run_advection_migrating
+    from mops_jax.parallel.migrate import run_advection_migrating
     n_cells, n_layers, n_part, n_steps = 1_000_000, 60, 10_000_000, 100
     mesh, sol, seeds, cells = build(n_cells, n_layers, n_part)
     cfg = mt.TrajectorySettings(delta_t=3600,
@@ -227,43 +169,38 @@ def case_E():
     out, dt = timed_run(run)
     log({"case": "config5-spec", "cells": n_cells, "layers": n_layers,
          "particles": n_part, "steps": n_steps,
-         "steps_per_s": round(n_part * n_steps / dt, 1),
-         "elapsed_s": round(dt, 2),
+         "steps_per_s": n_part * n_steps / dt,
+         "elapsed_s": dt,
          "dropped": int(np.asarray(out.dropped).sum()),
-         "window_misses": int(np.asarray(out.window_misses).sum()),
          "shards": int(out.final_ids.shape[0])})
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("cases", nargs="*", default=["A", "B", "C", "D", "E"])
-    ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "BENCH_REFSCALE.json"))
+    ap.add_argument("cases", nargs="*", default=["A", "B", "D", "E"])
+    ap.add_argument("--out", help="also write the results to this JSON file")
     args = ap.parse_args()
-    which = set(args.cases or ["A", "B", "C", "D", "E"])
-    dev = str(jax.devices()[0])
-    print(f"# device={dev}", file=sys.stderr, flush=True)
+    use_compile_cache()
+    jax.config.update("jax_enable_x64", True)    # for the float64 gate only
+    which = set(args.cases)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench_refscale.py: no GPU (JAX platform is "
+                 f"{dev.platform!r})")
+    print(f"# device={dev.platform} kind={dev.device_kind!r} "
+          f"count={len(jax.devices())}", file=sys.stderr, flush=True)
     if which & {"A", "B"}:
         case_A_B(which)
-    if "C" in which:
-        case_C()
     if "D" in which:
         case_D()
     if "E" in which:
         case_E()
-    doc = {"device": dev, "results": RESULTS}
-    if os.path.exists(args.out):
-        try:
-            old = json.load(open(args.out)).get("results", [])
-            names = {r.get("case") for r in RESULTS}
-            doc["results"] = [r for r in old
-                              if r.get("case") not in names] + RESULTS
-        except Exception:
-            pass
-    with open(args.out, "w") as f:
-        json.dump(doc, f, indent=1)
-    print(f"# wrote {args.out}", file=sys.stderr)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"device": {"platform": dev.platform,
+                                  "kind": dev.device_kind,
+                                  "count": len(jax.devices())},
+                       "results": RESULTS}, f, indent=1)
 
 
 if __name__ == "__main__":

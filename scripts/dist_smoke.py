@@ -1,7 +1,7 @@
 """Multi-process jax.distributed smoke test (2 processes x 4 CPU devices).
 
 Proves the particle-sharded advection path works across PROCESS boundaries --
-the multi-host story claimed in parallel/sharding.py -- without TPU pods:
+the multi-host story claimed in parallel/sharding.py -- on one machine:
 each process owns 4 virtual CPU devices of a global 8-device mesh, feeds its
 local shards, and checks its addressable slice of the sharded result against
 a locally-computed single-device reference.
@@ -29,8 +29,8 @@ def worker(pid: int) -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    import mops_tpu as mt
-    from mops_tpu.parallel.sharding import device_mesh, run_advection_sharded
+    import mops_jax as mt
+    from mops_jax.parallel.sharding import device_mesh, run_advection_sharded
 
     assert jax.process_count() == N_PROC
     assert len(jax.devices()) == N_PROC * DEV_PER_PROC

@@ -3,7 +3,7 @@
 import json
 import os
 
-from mops_tpu.agent import (extract_config, generate_job, route_request,
+from mops_jax.agent import (extract_config, generate_job, route_request,
                             generate_stream_yaml)
 
 
@@ -61,13 +61,13 @@ def test_generate_stream_yaml(tmp_path, mesh, raw_fields):
     out = generate_stream_yaml(str(tmp_path), str(tmp_path / "auto.yaml"))
     text = open(out).read()
     assert "oceanmesh.nc" in text
-    from mops_tpu.io import StreamConfig
+    from mops_jax.io import StreamConfig
     cfg = StreamConfig.parse(out)
     assert cfg.substream("mesh").filenames
 
 
 def test_llm_client_endpoint_resolution(monkeypatch):
-    from mops_tpu.agent import llm_client
+    from mops_jax.agent import llm_client
     for var in ("FOUNDRY_BASE_URL", "AZURE_INFERENCE_ENDPOINT",
                 "AZURE_OPENAI_ENDPOINT", "OPENAI_BASE_URL", "FOUNDRY_API_KEY",
                 "AZURE_INFERENCE_API_KEY", "AZURE_OPENAI_API_KEY",
@@ -120,7 +120,7 @@ def test_llm_client_against_local_server():
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
     try:
-        from mops_tpu.agent import make_llm, route_request
+        from mops_jax.agent import make_llm, route_request
         llm = make_llm(model="test-model",
                        base_url=f"http://127.0.0.1:{srv.server_port}/v1",
                        api_key="k", provider="openai")

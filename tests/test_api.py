@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import mops_tpu as mt
-from mops_tpu import api
+import mops_jax as mt
+from mops_jax import api
 
 
 @pytest.fixture()

@@ -7,8 +7,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from mops_tpu.frontend import serve
-from mops_tpu.utils.dates import (YMD, make_forward_month_pairs, render_name,
+from mops_jax.frontend import serve
+from mops_jax.utils.dates import (YMD, make_forward_month_pairs, render_name,
                                   time_gap_seconds)
 
 

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mops_tpu import geo
-from mops_tpu.config import EARTH_RADIUS
+from mops_jax import geo
+from mops_jax.config import EARTH_RADIUS
 
 
 def test_latlon_xyz_roundtrip():

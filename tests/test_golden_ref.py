@@ -1,7 +1,7 @@
 """Golden validation against the REAL reference TBB backend.
 
 These tests compile the unmodified reference CPU backend
-(/root/reference/src/CPU/TBB) via golden/driver.cpp and require mops_tpu
+(reference src/CPU/TBB) via golden/driver.cpp and require mops_jax
 trajectories to match the C++-produced trajectories bit-for-bit (up to fp64
 summation-order noise).  This closes the loop SURVEY.md §4 demands: the
 oracle is the reference's own compiled code, not a transcription.
@@ -12,8 +12,8 @@ Skipped automatically when the reference tree or g++ is unavailable.
 import numpy as np
 import pytest
 
-import mops_tpu as mt
-from mops_tpu.oracle import refbin
+import mops_jax as mt
+from mops_jax.oracle import refbin
 
 pytestmark = pytest.mark.skipif(
     not refbin.available(), reason="reference tree or g++ not available")
@@ -31,7 +31,7 @@ def _ztop(raw):
     comparison isolates preprocessing+advection, which both engines compute
     from it with their own code)."""
     import jax.numpy as jnp
-    from mops_tpu.solution import cell_center_ztop
+    from mops_jax.solution import cell_center_ztop
     z = cell_center_ztop(jnp.asarray(raw["layerThickness"], dtype=jnp.float64),
                          jnp.asarray(raw["bottomDepth"], dtype=jnp.float64), None)
     return np.asarray(z)
@@ -188,7 +188,7 @@ def test_landmasked_80layer_matches_reference_binary(golden_driver):
 def _viz_field(mesh, raw, ztop):
     front = dict(raw)
     front["zTop"] = ztop
-    from mops_tpu.field import Field
+    from mops_jax.field import Field
     return Field(mesh, mt.preprocess(mesh, front))
 
 
@@ -212,7 +212,7 @@ def test_fixed_depth_remap_matches_reference_binary(mesh, raw_fields,
     ImageBuffer.hpp:79); golden/shim/Common/ImageBuffer.hpp forwards the TBB
     pixel vector as double* -- the CUDA backend's calling convention -- so
     the comparison is against the reference's device semantics."""
-    from mops_tpu import remap
+    from mops_jax import remap
     ztop = _ztop(raw_fields)
     field = _viz_field(mesh, raw_fields, ztop)
     for depth in (300.0, 2.0):
@@ -230,7 +230,7 @@ def test_fixed_depth_remap_matches_reference_binary(mesh, raw_fields,
 def test_fixed_depth_below_bottom_all_nan(mesh, raw_fields, golden_driver):
     """A depth below the deepest column must NaN out every pixel in both
     engines (the epsd in-column test, reference kernel :368-376)."""
-    from mops_tpu import remap
+    from mops_jax import remap
     ztop = _ztop(raw_fields)
     field = _viz_field(mesh, raw_fields, ztop)
     cfg = mt.VisualizationSettings(
@@ -245,7 +245,7 @@ def test_fixed_depth_below_bottom_all_nan(mesh, raw_fields, golden_driver):
 
 def test_fixed_layer_matches_reference_binary(mesh, raw_fields, golden_driver):
     """run_fixed_layer vs reference VisualizeFixedLayer (kernel :141-236)."""
-    from mops_tpu import remap
+    from mops_jax import remap
     ztop = _ztop(raw_fields)
     field = _viz_field(mesh, raw_fields, ztop)
     for layer in (0, 2, 99):   # 99 exercises the ClampLayer path
@@ -261,7 +261,7 @@ def test_fixed_layer_matches_reference_binary(mesh, raw_fields, golden_driver):
 def test_fixed_latitude_regrid_matches_reference_binary(golden_driver):
     """run_regrid vs reference VisualizeFixedLatitude (kernel :473-651) on a
     land-masked mesh so the isOnOcean sign test is exercised both ways."""
-    from mops_tpu import remap
+    from mops_jax import remap
     mesh = mt.synth.build_voronoi_mesh(
         1200, n_layers=8, jitter=0.05, seed=3,
         land_box=(5.0, 45.0, -60.0, -10.0), name="goldenlat")
@@ -313,13 +313,13 @@ def test_rbf_reconstruction_matches_reference_binary(golden_driver):
     phantom lanes for cells with fewer edges; the phantom row/column is
     all-zero, the Gauss pivot hits 0/0, and the reference produces NaN
     velocity for EVERY cell with < 7 edges (the SYCL/CUDA variants read
-    uninitialized stack instead -- undefined).  mops_tpu's masked reduced
+    uninitialized stack instead -- undefined).  mops_jax's masked reduced
     solve is the evidently-intended semantics; this test requires
     machine-precision agreement wherever the reference is finite (all
     7-edge cells -- including boundary cells, proving the alpha=1.0
     override and the min()-side boundary-normal pick) and documents the
     NaN divergence on the rest."""
-    from mops_tpu.solution import cell_center_velocity_rbf
+    from mops_jax.solution import cell_center_velocity_rbf
     mesh = mt.synth.build_voronoi_mesh(
         1500, n_layers=4, seed=3, land_box=(5.0, 45.0, -60.0, -10.0),
         name="rbfland")
@@ -375,7 +375,7 @@ def test_netcdf_ingest_to_trajectories_matches_reference(tmp_path, mesh,
     reference TBB binary fed the same reader-derived arrays.  Closes the
     round-2 gap 'no real-format NetCDF has been through io/reader end to end
     into trajectories'."""
-    from mops_tpu.io.reader import MPASOReader, StreamConfig
+    from mops_jax.io.reader import MPASOReader, StreamConfig
     from test_io import _write_mesh_nc3
 
     nc_path = str(tmp_path / "synth_mesh.nc")
@@ -479,7 +479,7 @@ def test_gradient_mesh_pathline_matches_reference(grad_mesh, grad_raw,
 
 def test_gradient_mesh_fixed_depth_matches_reference(grad_mesh, grad_raw,
                                                      golden_driver):
-    from mops_tpu import remap
+    from mops_jax import remap
     ztop = _ztop(grad_raw)
     field = _viz_field(grad_mesh, grad_raw, ztop)
     cfg = mt.VisualizationSettings(

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mops_tpu import interp
-from mops_tpu.oracle.oracle import _wachspress, _barycentric
+from mops_jax import interp
+from mops_jax.oracle.oracle import _wachspress, _barycentric
 
 
 def _regular_polygon(n, radius=1.0):

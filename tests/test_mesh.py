@@ -2,7 +2,7 @@
 
 import numpy as np
 
-import mops_tpu as mt
+import mops_jax as mt
 
 
 def test_mesh_structure(mesh):
@@ -67,7 +67,7 @@ def test_cell_search_exact(mesh):
 
 
 def test_native_search_exact_including_poles(mesh):
-    from mops_tpu.native import NativeCellSearch
+    from mops_jax.native import NativeCellSearch
     xyz = np.asarray(mesh.cell_xyz)
     ns = NativeCellSearch(xyz)
     rng = np.random.default_rng(9)

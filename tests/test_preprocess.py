@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import mops_tpu as mt
-from mops_tpu import solution
-from mops_tpu.oracle import oracle_preprocess
+import mops_jax as mt
+from mops_jax import solution
+from mops_jax.oracle import oracle_preprocess
 
 
 def test_cell_center_ztop_bottom_depth():
@@ -59,7 +59,7 @@ def test_rbf_velocity_matches_scalar_oracle(mesh, raw_fields, sol):
     (per-cell transcription of the reference kernel, including the alpha=1.0
     override and the evaluate_rbf(1.0) rhs quirk)."""
     import jax.numpy as jnp
-    from mops_tpu.oracle import oracle_rbf_cell_velocity
+    from mops_jax.oracle import oracle_rbf_cell_velocity
 
     # synthesize edge-normal velocities by projecting the ZM cell velocity
     cx = np.asarray(mesh.cell_xyz)

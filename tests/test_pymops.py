@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-import mops_tpu as mt
-from mops_tpu.io.cache import (load_particle_checkpoint, load_solution_cache,
+import mops_jax as mt
+from mops_jax.io.cache import (load_particle_checkpoint, load_solution_cache,
                                save_particle_checkpoint, save_solution_cache)
-from mops_tpu.pymops import (MOPSPathline, MOPSReGrid, MOPSRemapping,
+from mops_jax.pymops import (MOPSPathline, MOPSReGrid, MOPSRemapping,
                              MOPSStreamline)
 
 

@@ -3,7 +3,7 @@ src/Common/TrajectoryCommon.h + test/test_trajector.cpp scenarios)."""
 
 import numpy as np
 
-import mops_tpu as mt
+import mops_jax as mt
 
 
 def _cfg(n_rec=4):

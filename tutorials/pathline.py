@@ -9,9 +9,9 @@ import argparse
 
 import numpy as np
 
-import mops_tpu as mt
-from mops_tpu import api, seeding
-from mops_tpu.io import image as imgio
+import mops_jax as mt
+from mops_jax import api, seeding
+from mops_jax.io import image as imgio
 
 
 def main():

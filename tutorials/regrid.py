@@ -6,9 +6,9 @@ section image).
 
 import argparse
 
-import mops_tpu as mt
-from mops_tpu import api
-from mops_tpu.io import image as imgio
+import mops_jax as mt
+from mops_jax import api
+from mops_jax.io import image as imgio
 
 
 def main():

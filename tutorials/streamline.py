@@ -9,9 +9,9 @@ import argparse
 
 import numpy as np
 
-import mops_tpu as mt
-from mops_tpu import api
-from mops_tpu.io import image as imgio
+import mops_jax as mt
+from mops_jax import api
+from mops_jax.io import image as imgio
 
 
 def main():
@@ -26,7 +26,7 @@ def main():
     app.init(precision="fp64")
     app.begin()
     if args.yaml:
-        from mops_tpu.io import MPASOReader, StreamConfig
+        from mops_jax.io import MPASOReader, StreamConfig
         reader = MPASOReader(StreamConfig.parse(args.yaml))
         mesh = reader.read_mesh()
         raw = reader.read_solution(0)
